@@ -9,7 +9,7 @@ window_groups, identical junction table) is asserted by
 tests/test_stream_spmd.py.
 
 Usage: python scripts/bench_junction_window.py [--genome-mb 20]
-       [--coverage 30] [--events 4000] [--out STREAM_SPMD.jsonl]
+       [--coverage 30] [--events 4000] [--out junction_window.jsonl]
 """
 import argparse
 import json

@@ -105,7 +105,7 @@ def extend_score(query: np.ndarray, target: np.ndarray, h0: int,
 def extend_batch_np(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
                     tlen: np.ndarray, h0: np.ndarray, zdrop: int = 100):
     """Vectorized-over-jobs extension scoring (numpy mirror of the
-    jax/pallas kernels; same results as per-job extend_score).  Used as
+    device kernels; same results as per-job extend_score).  Used as
     the host path of BatchAligner — one [B, LQ] matrix op per target
     column instead of per-job python loops."""
     B, LQ = q.shape

@@ -89,7 +89,7 @@ def _add_somatic(sub):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="seeksv-tpu",
-        description="TPU-native structural variation and virus integration "
+        description="structural variation and virus integration "
                     "detection")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_getclip(sub)
@@ -128,10 +128,6 @@ def main(argv=None) -> int:
     pr.add_argument("--rescue", action="store_true")
     pr.add_argument("--profile", default=None, dest="profile_dir",
                     help="write a JAX profiler trace to this directory")
-    pr.add_argument("--no-auto-calibrate", action="store_true",
-                    help="skip the dispatch-calibration fingerprint check "
-                         "(a stale calibration otherwise re-measures the "
-                         "host/device crossover on first run)")
     pr.add_argument("--stream", action="store_true",
                     help="bounded-memory ingestion: decode each BAM once "
                          "in chunks (pipeline.stream)")
@@ -174,6 +170,8 @@ def main(argv=None) -> int:
     pc.add_argument("out_prefix")
 
     args = parser.parse_args(argv)
+    from .utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
 
     if args.cmd == "getclip":
         from .pipeline.getclip import getclip
@@ -222,13 +220,11 @@ def main(argv=None) -> int:
             align_fastq_to_sam(args.ref_fa, args.reads_fq, args.out_sam,
                                min_seed_len=args.min_seed_len)
     elif args.cmd == "run":
-        if not args.no_auto_calibrate:
-            # fresh-host readiness: recalibrate the dispatch crossover
-            # when the live hardware pair doesn't match the committed
-            # fingerprint (VERDICT r3 #9)
-            from .align.engine import BatchAligner
-            BatchAligner.ensure_calibration(
-                auto=True, log=lambda *a: print(*a, file=sys.stderr))
+        # the committed crossover is a measurement of one card: say so
+        # when this one differs (no re-measurement in-process)
+        from .align.engine import BatchAligner
+        BatchAligner.check_calibration(
+            log=lambda *a: print(*a, file=sys.stderr))
         if args.device_align_auto:
             from .ops.align_device import device_align_auto_enabled
             args.device_align = device_align_auto_enabled()

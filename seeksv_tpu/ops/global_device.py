@@ -3,12 +3,13 @@
 The long-fragment realign bottleneck after the banded ladder landed is
 the finalize stage itself: the winning candidates' global tracebacks
 run on the host (csrc seeksv_sw_global ladder).  This module moves the
-two cheap rungs (w = 16, 64) onto the TPU:
+two cheap rungs (w = 16, 64) onto the device, as plain XLA on every
+backend:
 
   rung 16  one banded DP pass for EVERY job computing terminal score +
-           per-cell direction bits (5 bits/cell, packed 4 rows/word by
-           the Mosaic kernel); the HOST applies the ladder's sound
-           band-sufficiency bound to the scores.
+           per-cell direction bits (5 bits/cell, one uint8 per cell);
+           the HOST applies the ladder's sound band-sufficiency bound
+           to the scores.
   rung 64  the same pass at w=64, only for jobs rung 16's bound did
            not accept; acceptance precedence mirrors the host ladder's
            check order exactly (sound16, sound64, then the equal-
@@ -44,7 +45,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
 
 MATCH = 1
 MISMATCH = 4
@@ -175,8 +175,7 @@ def _scan_band(q, qlen, t2, dlo, n, K, LQ, want_dirs):
 def banded_direction(q, qlen, t2, dlo, n, K, LQ):
     """One banded DP pass: terminal scores + [LQ, B, K] direction bits
     (q [B, LQ] int8/int32 codes, t2 the dlo-shifted target panel from
-    build_t2, dlo/n per job).  XLA-scan form — the oracle for the
-    Mosaic kernel below and the CPU/test path."""
+    build_t2, dlo/n per job)."""
     return _scan_band(q, qlen, t2, dlo, n, K, LQ, want_dirs=True)
 
 
@@ -234,13 +233,9 @@ def traceback_rle(dirs, q, t2, qlen, n, dlo, K, LQ, T):
     return _rle_tail(ops_rev.T, cnt_rev.T, T)
 
 
-def _walk_step(i, j, mode, done, d, m_extra=None):
+def _walk_step(i, j, mode, done, d):
     """One traceback step (C++ preference order; see traceback_rle).
-    Returns (op 0/1/2 or 3=none, count, i', j', mode', done').
-    m_extra: optional [B] int32 of ADDITIONAL consecutive M steps
-    provable from already-gathered bits (multi-M consumption in the
-    packed walk: the diagonal move keeps the band column fixed, so the
-    next rows' dm bits live in the same packed word)."""
+    Returns (op 0/1/2 or 3=none, count, i', j', mode', done')."""
     at_end = (i == 0) & (j == 0)
     in_e = mode == 1
     in_f = mode == 2
@@ -262,15 +257,6 @@ def _walk_step(i, j, mode, done, d, m_extra=None):
     is_i = op == 1
     is_d = op == 2
     cnt = jnp.where(op == 3, 0, 1)
-    if m_extra is not None:
-        # extend a dm-chosen M by the provable extra steps (never past
-        # i/j bounds — the caller's bits already encode in-band cells,
-        # and the walk's own bound checks apply per consumed row)
-        ext = jnp.where(is_m & (h_op == 0) & ~in_e & ~in_f,
-                        jnp.minimum(m_extra,
-                                    jnp.minimum(i - 1, j - 1)), 0)
-        ext = jnp.maximum(ext, 0)
-        cnt = cnt + ext
     di = jnp.where(is_m | is_i, cnt, 0)
     dj = jnp.where(is_m | is_d, cnt, 0)
     i2 = jnp.where(done != 0, i, i - di)
@@ -318,223 +304,6 @@ def _rle_tail(ops_rev, cnt_rev, T):
     return runs_len, runs_op, n_runs
 
 
-# ---- Pallas TPU kernel ----------------------------------------------------
-# The XLA-scan form above is the oracle (and the CPU/test path); it runs
-# at ~0.6 Gcell/s on the chip — per-row dynamic slices and the prefix
-# scan don't fuse.  The Mosaic form puts jobs on lanes (BT = 128), band
-# columns on sublanes (K), loops rows with carried H/F planes in
-# scratch, and packs 4 rows' direction bytes into one int32 word before
-# the HBM write (direction volume = B*LQ*K bytes).  Grid is
-# (job blocks, row chunks); scratch persists across the row chunks of a
-# job block (TPU grids execute sequentially, last dim fastest).
-
-_RC = 64          # DP rows per grid step (RC % 4 == 0; LQ % RC == 0)
-
-
-def _banded_dir_kernel(q_ref, t2_ref, dlo_ref, m_ref, n_ref,
-                       score_ref, dirs_ref, h_s, f_s, sc_s):
-    K, BT = h_s.shape
-    ir = pl.program_id(1)
-    dlo = dlo_ref[:]                       # [1, BT]
-    m = m_ref[:]
-    n = n_ref[:]
-    w = jnp.minimum(0, n - m) - dlo
-    k_real = jnp.abs(n - m) + 2 * w + 1
-    c_end = (n - m) - dlo
-    ciota = jax.lax.broadcasted_iota(jnp.int32, (K, BT), 0)
-    neg = jnp.full((K, BT), NEG_INF, jnp.int32)
-
-    @pl.when(ir == 0)
-    def _init():
-        j0 = dlo + ciota
-        h_s[:] = jnp.where(
-            j0 == 0, 0,
-            jnp.where((j0 >= 1) & (j0 <= n) & (ciota < k_real),
-                      -GAP_OPEN - j0 * GAP_EXT, NEG_INF))
-        f_s[:] = neg
-        sc_s[:] = jnp.where((m == 0) & (n == 0), 0,
-                            jnp.full((1, BT), NEG_INF, jnp.int32))
-
-    def _shift_up(x):
-        # x[c] -> x[c+1] along sublanes (band col of (i-1, j))
-        return jnp.concatenate(
-            [x[1:, :], jnp.full((1, BT), NEG_INF, jnp.int32)], axis=0)
-
-    def _excl_pmax(u):
-        p = u
-        shift = 1
-        while shift < K:
-            p = jnp.maximum(p, jnp.concatenate(
-                [jnp.full((shift, BT), NEG_INF, jnp.int32), p[:-shift, :]],
-                axis=0))
-            shift *= 2
-        return jnp.concatenate(
-            [jnp.full((1, BT), NEG_INF, jnp.int32), p[:-1, :]], axis=0)
-
-    def group(g, _):
-        # 4 DP rows per iteration, statically unrolled: their direction
-        # bytes pack into one int32 word written once (no traced
-        # conditionals, 4x fewer HBM stores)
-        word = jnp.zeros((K, BT), jnp.int32)
-        hprev = h_s[:]
-        fprev = f_s[:]
-        sc = sc_s[:]
-        for lane in range(4):
-            i = ir * _RC + g * 4 + lane + 1
-            qi = q_ref[pl.ds(i - 1, 1), :]              # [1, BT]
-            trow = t2_ref[pl.ds(i - 1, K), :]           # [K, BT]
-            ambig = (qi > 3) | (trow > 3)
-            sub = jnp.where(ambig, AMBIG,
-                            jnp.where(trow == qi, MATCH, -MISMATCH))
-            j = i + dlo + ciota
-            computed = (j >= 1) & (j <= n) & (ciota < k_real)
-            boundary_j0 = (j == 0) & (ciota < k_real)
-            diag = hprev + sub
-            hup = _shift_up(hprev)
-            fup = _shift_up(fprev)
-            f = jnp.maximum(hup - GAP_OPEN, fup) - GAP_EXT
-            gmat = jnp.maximum(diag, f)
-            bval = -GAP_OPEN - i * GAP_EXT
-            u = jnp.where(computed, gmat + j * GAP_EXT,
-                          jnp.where(boundary_j0, bval, NEG_INF))
-            m2 = _excl_pmax(u)
-            e = m2 - GAP_OPEN - j * GAP_EXT
-            h = jnp.maximum(gmat, e)
-            h = jnp.where(computed, h,
-                          jnp.where(boundary_j0, bval, NEG_INF))
-            fm = jnp.where(computed, f,
-                           jnp.where(boundary_j0, bval, NEG_INF))
-            em = jnp.where(computed, e, NEG_INF)
-            dm = computed & (h == diag)
-            de = computed & (h == em)
-            df = (computed & (h == fm)) | boundary_j0
-            eprev = jnp.concatenate(
-                [jnp.full((1, BT), NEG_INF, jnp.int32), em[:-1, :]],
-                axis=0)
-            erun = computed & (j - 1 >= 1) & (em == eprev - GAP_EXT)
-            frun = ((computed | boundary_j0) & (i > 1)
-                    & (fm == fup - GAP_EXT))
-            zero = jnp.zeros((K, BT), jnp.int32)
-            dirb = (jnp.where(dm, _DM, zero)
-                    | jnp.where(de, _DE, zero)
-                    | jnp.where(df, _DF, zero)
-                    | jnp.where(erun, _ERUN, zero)
-                    | jnp.where(frun, _FRUN, zero))
-            word = word | (dirb << (lane * 8))
-            sc_here = jnp.max(jnp.where(ciota == c_end, h, NEG_INF),
-                              axis=0, keepdims=True)
-            sc = jnp.where(i == m, sc_here, sc)
-            hprev = h
-            fprev = fm
-        dirs_ref[pl.ds(g * K, K), :] = word
-        h_s[:] = hprev
-        f_s[:] = fprev
-        sc_s[:] = sc
-        return 0
-
-    jax.lax.fori_loop(0, _RC // 4, group, 0)
-    score_ref[:] = sc_s[:]
-
-
-@functools.partial(jax.jit, static_argnames=("K", "LQ", "interpret"))
-def pallas_banded_direction(q, qlen, t2, dlo, n, K, LQ, interpret=False):
-    """Mosaic banded DP: returns (score [B], dirsP [(LQ//4)*K, Bp]
-    int32 packed direction words, Bp).  Word for DP row i, band col c
-    is dirsP[((i-1)//4)*K + c, b], byte (i-1) % 4.  Equivalent to
-    banded_direction after unpacking (tests/test_global_device.py)."""
-    from jax.experimental.pallas import tpu as pltpu
-    B = q.shape[0]
-    BT = 128
-    Bp = ((B + BT - 1) // BT) * BT
-    pad = Bp - B
-
-    def _pad(x, fill):
-        return jnp.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1),
-                       constant_values=fill)
-
-    qT = _pad(q.astype(jnp.int32), 4).T                    # [LQ, Bp]
-    t2T = _pad(t2.astype(jnp.int32), 4).T                  # [LQ+K, Bp]
-    dl = _pad(dlo.astype(jnp.int32), 0)[None, :]
-    mm = _pad(qlen.astype(jnp.int32), 0)[None, :]
-    nn = _pad(n.astype(jnp.int32), 0)[None, :]
-    assert LQ % _RC == 0 and _RC % 4 == 0
-    grid = (Bp // BT, LQ // _RC)
-    score, dirs = pl.pallas_call(
-        _banded_dir_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((LQ, BT), lambda b, r: (0, b)),
-            pl.BlockSpec((LQ + K, BT), lambda b, r: (0, b)),
-            pl.BlockSpec((1, BT), lambda b, r: (0, b)),
-            pl.BlockSpec((1, BT), lambda b, r: (0, b)),
-            pl.BlockSpec((1, BT), lambda b, r: (0, b)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, BT), lambda b, r: (0, b)),
-            pl.BlockSpec(((_RC // 4) * K, BT), lambda b, r: (r, b)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
-            jax.ShapeDtypeStruct(((LQ // 4) * K, Bp), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((K, BT), jnp.int32),
-            pltpu.VMEM((K, BT), jnp.int32),
-            pltpu.VMEM((1, BT), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")),
-        interpret=interpret,
-    )(qT, t2T, dl, mm, nn)
-    return score[0, :B], dirs, Bp
-
-
-@functools.partial(jax.jit, static_argnames=("K", "LQ", "T"))
-def traceback_rle_packed(dirsP, q, t2, qlen, n, dlo, K, LQ, T):
-    """traceback_rle over the Mosaic kernel's packed direction words:
-    one int32 gather per step, AND multi-M consumption — a diagonal
-    (M) move keeps the band column fixed, so the next three rows' dm
-    bits live in the already-gathered word (bytes b-1..b-3); an M step
-    extends by every provable consecutive dm, cutting the
-    latency-bound scan's step count ~3-4x in M-dominated walks.
-    Identical runs to traceback_rle (C++ checks dm FIRST at every
-    cell, so consecutive dm cells are exactly consecutive M ops).
-    q/t2/qlen/n/dlo are the UNPADDED [B, ...] host-order arrays; the
-    padded lanes of dirsP are simply never addressed."""
-    B = q.shape[0]
-    i0 = qlen.astype(jnp.int32)
-    j0 = n.astype(jnp.int32)
-
-    def step(carry, tt):
-        i, j, mode, done = carry
-        c = j - i - dlo
-        cc = jnp.clip(c, 0, K - 1)
-        g = jnp.clip((i - 1) >> 2, 0, LQ // 4 - 1) * K + cc
-        word = dirsP[g, jnp.arange(B)]
-        b = (i - 1) & 3
-        ok = (i >= 1) & (c >= 0) & (c < K)
-        d = jnp.where(ok, (word >> (b * 8)) & 0xFF, 0).astype(jnp.int32)
-
-        def dm_at(l):
-            sh = jnp.maximum(b - l, 0) * 8
-            return (b >= l) & ((((word >> sh) & 0xFF) & _DM) != 0)
-
-        e1 = dm_at(1)
-        e2 = e1 & dm_at(2)
-        e3 = e2 & dm_at(3)
-        m_extra = jnp.where(ok, e1.astype(jnp.int32)
-                            + e2.astype(jnp.int32)
-                            + e3.astype(jnp.int32), 0)
-        op, cnt, i2, j2, mode2, done2 = _walk_step(i, j, mode, done, d,
-                                                   m_extra)
-        return (i2, j2, mode2, done2), (op, cnt)
-
-    init = (i0, j0, jnp.zeros((B,), jnp.int32), jnp.zeros((B,), jnp.int32))
-    _, (ops_rev, cnt_rev) = jax.lax.scan(
-        step, init, jnp.arange(T, dtype=jnp.int32))
-    return _rle_tail(ops_rev.T, cnt_rev.T, T)
-
-
 # ---- host orchestration ---------------------------------------------------
 
 _OPCHR = np.array(["M", "I", "D"])
@@ -550,9 +319,9 @@ class DeviceGlobalAligner:
     LQ_BUCKETS = (512, 1024, 1536, 2048)
 
     def __init__(self, max_dir_bytes: int = 1 << 30):
-        # per-chunk cap on the packed direction tensor in HBM; bigger
-        # chunks amortize the traceback scan's per-step latency (the
-        # dominant device cost — ~0.2 ms/step regardless of B)
+        # per-chunk cap on the direction tensor in device memory;
+        # bigger chunks amortize the traceback scan's per-step latency
+        # over more jobs
         self.max_dir_bytes = max_dir_bytes
 
     @staticmethod
@@ -580,16 +349,6 @@ class DeviceGlobalAligner:
         return (MATCH * (mn - (w + 1)) - 2 * GAP_OPEN
                 - (ad + 2 * (w + 1)) * GAP_EXT)
 
-    @staticmethod
-    def _use_pallas() -> bool:
-        import os
-        if os.environ.get("SEEKSV_TPU_GLOBAL_DEVICE_XLA"):
-            return False
-        try:
-            return jax.devices()[0].platform != "cpu"
-        except Exception:
-            return False
-
     def align_batch(self, qs, ts):
         """qs/ts: lists of np code arrays (the finalize sel jobs).
         Returns {job_index: (score, [(len, op), ...], nm)} for jobs
@@ -600,9 +359,7 @@ class DeviceGlobalAligner:
         One DP pass per rung per chunk (score + direction bits
         together): rung 16 runs for every job, rung 64 only for jobs
         its sound bound did not accept; tracebacks run masked (declined
-        jobs walk zero steps), so no per-rung job gathering is needed.
-        The Mosaic kernel serves accelerator backends; the XLA-scan
-        oracle serves CPU (tests/dryruns)."""
+        jobs walk zero steps), so no per-rung job gathering is needed."""
         idxs = [i for i, (q, t) in enumerate(zip(qs, ts))
                 if self.eligible(len(q), len(t))]
         if not idxs:
@@ -618,7 +375,7 @@ class DeviceGlobalAligner:
             q[r, :ms[r]] = qs[i]
             t[r, :ns[r]] = ts[i]
         out = {}
-        # chunk so the packed direction tensor stays bounded in HBM
+        # chunk so the direction tensor stays bounded in device memory
         chunk = max(128, self.max_dir_bytes // (LQ * self.RUNGS[-1][1]))
         for c0 in range(0, B, chunk):
             c1 = min(B, c0 + chunk)
@@ -627,7 +384,6 @@ class DeviceGlobalAligner:
         return out
 
     def _chunk(self, q, t, ms, ns, idxs, LQ, LT, out):
-        use_pallas = self._use_pallas()
         qd = jax.device_put(q)
         td = jax.device_put(t)
         md = jax.device_put(ms)
@@ -640,12 +396,7 @@ class DeviceGlobalAligner:
             dlo = (np.minimum(0, ns - ms) - w).astype(np.int32)
             dl = jax.device_put(dlo)
             t2 = build_t2(td, nd, dl, K=K, LQ=LQ, LT=LT)
-            if use_pallas:
-                score, dirs, _ = pallas_banded_direction(
-                    qd, md, t2, dl, nd, K=K, LQ=LQ)
-            else:
-                score, dirs = banded_direction(
-                    qd, md, t2, dl, nd, K=K, LQ=LQ)
+            score, dirs = banded_direction(qd, md, t2, dl, nd, K=K, LQ=LQ)
             return np.asarray(score), dirs, t2, dl
 
         accepted = []      # (out_index, row, score, cigar) pending NM
@@ -653,13 +404,8 @@ class DeviceGlobalAligner:
         def run_tb(dirs, t2, dl, accept, score_arr, K):
             mm = jax.device_put(np.where(accept, ms, 0).astype(np.int32))
             nnn = jax.device_put(np.where(accept, ns, 0).astype(np.int32))
-            T = LQ + K
-            if use_pallas:
-                rl, ro, nr = traceback_rle_packed(
-                    dirs, qd, t2, mm, nnn, dl, K=K, LQ=LQ, T=T)
-            else:
-                rl, ro, nr = traceback_rle(
-                    dirs, qd, t2, mm, nnn, dl, K=K, LQ=LQ, T=T)
+            rl, ro, nr = traceback_rle(
+                dirs, qd, t2, mm, nnn, dl, K=K, LQ=LQ, T=LQ + K)
             rl = np.asarray(rl)
             ro = np.asarray(ro)
             nr = np.asarray(nr)

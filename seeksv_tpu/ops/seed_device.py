@@ -5,7 +5,7 @@ Same algorithm as align/seed_batch.py:batch_candidates (itself the exact
 vectorization of Aligner._candidates, i.e. the seed→chain front-end role of
 bwa mem in the reference pipeline — SURVEY.md §2 realignment stage), but
 with static shapes so the whole front-end can run on device next to the
-Pallas extension kernel:
+extension kernel:
 
   * rolling 2-bit hashes for all read k-mers (k static → unrolled),
   * one searchsorted pair against the sorted key table,
@@ -187,7 +187,7 @@ def pad_reads(reads, k: int):
 
 
 class DeviceSeeder:
-    """Holds the k-mer table as device arrays (HBM-resident on TPU) and
+    """Holds the k-mer table as device arrays (resident in device memory) and
     runs the seeding kernel over padded read batches."""
 
     def __init__(self, idx, device=None):

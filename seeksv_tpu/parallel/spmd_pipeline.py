@@ -13,8 +13,7 @@ parallelism call-out):
     halos are needed (ref per-chromosome flush proves the independence,
     clip_reads.h:423-446).
   * realignment — extension jobs batch-sharded across the mesh (the
-    FLOP-dominant stage; ops/jax_kernels.sw_extend_batch or the Pallas
-    kernel on TPU).
+    FLOP-dominant stage; the kernel ops.extend chooses, under shard_map).
   * junction tables — per-shard event generation (getsv.junction_event is
     pure and order-preserving per clip group), encoded as fixed-shape
     6-tuple key + SeqInfo payload arrays, all-gathered across the mesh
@@ -509,7 +508,7 @@ def _batch_merge_gates(pairs, strs):
     """The 0.85 both-side match gate for EVERY candidate pair of every
     partition as one padded data-parallel comparison (the reference
     evaluates it pair-at-a-time, getsv.cpp:1411; this formulation is a
-    single fused elementwise+reduce op — the TPU-native shape of the
+    single fused elementwise+reduce op — the array shape of the
     merge's compute)."""
     if not pairs:
         return {}

@@ -146,10 +146,13 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *,
                  normal_bam: Optional[str] = None, rescue: bool = False,
                  filtered_out=None, profile_dir: Optional[str] = None,
                  device_seed: bool = False, device_align: bool = False,
-                 log=lambda *a: None) -> None:
+                 force_host: bool = False, log=lambda *a: None) -> dict:
     """profile_dir: when set, wraps the run in a JAX profiler trace
     (viewable in TensorBoard/XProf) and logs per-stage reads/s counters —
-    the observability surface the reference lacks (SURVEY.md §5)."""
+    the observability surface the reference lacks (SURVEY.md §5).
+    force_host pins the realignment to the host kernels (the control arm
+    of a host/device comparison).  Returns the realignment's stage
+    timings, its last extension dispatch and its finalize split."""
     prof = None
     if profile_dir:
         try:
@@ -167,7 +170,7 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *,
     log(f"[{time.time()-t0:.2f}s] getclip done")
     aligner = realign_clips(ref_fa, f"{prefix}.clip.fq.gz",
                             f"{prefix}.clip.sam", device_seed=device_seed,
-                            device_align=device_align)
+                            device_align=device_align, force_host=force_host)
     log(f"[{time.time()-t0:.2f}s] realignment done")
     getsv(f"{prefix}.clip.sam", bam, f"{prefix}.clip.gz", f"{prefix}.sv",
           f"{prefix}.unmapped.clip.fq", recs=recs, rescue=rescue,
@@ -186,3 +189,6 @@ def run_pipeline(ref_fa: str, bam: str, prefix: str, *,
                 f"{prefix}.somatic.temp.sv", recs=nrecs)
         somatic_filter(f"{prefix}.somatic.temp.sv", f"{prefix}.somatic.sv")
         log(f"[{time.time()-t0:.2f}s] somatic done -> {prefix}.somatic.sv")
+    return {"timings": dict(aligner.timings),
+            "dispatch": getattr(aligner, "last_dispatch", None),
+            "finalize": aligner.last_finalize}

@@ -171,6 +171,7 @@ def test_engine_device_finalize_bit_parity(tmp_path, monkeypatch):
     host = al.batch_align(reads, force_host=True)
     monkeypatch.setenv("SEEKSV_TPU_DEVICE_FINALIZE_ON_CPU", "1")
     monkeypatch.setenv("SEEKSV_TPU_FINALIZE_CROSSOVER_CELLS", "1")
+    monkeypatch.setenv("SEEKSV_TPU_FINALIZE_DEVICE_SHARE", "0.55")
     al2 = BatchAligner.from_fasta(str(fa))
     dev = al2.batch_align(reads)
     assert al2.timings["device_finalize_s"] > 0, (
@@ -186,3 +187,29 @@ def test_engine_device_finalize_bit_parity(tmp_path, monkeypatch):
 
     for i, (h, d) in enumerate(zip(host, dev)):
         assert key(h) == key(d), f"read {i}: {key(h)} != {key(d)}"
+
+
+def test_engine_device_finalize_failure_is_loud(tmp_path, monkeypatch):
+    """A device finalize that raises must fail the realignment, not turn
+    silently into host-only results."""
+    from seeksv_tpu.align.engine import BatchAligner
+    rng = np.random.default_rng(9)
+    genome = rng.integers(0, 4, 50_000).astype(np.uint8)
+    fa = tmp_path / "g.fa"
+    code2b = np.frombuffer(b"ACGT", np.uint8)
+    fa.write_text(">chrX\n" + code2b[genome].tobytes().decode() + "\n")
+    reads = []
+    for _ in range(6):
+        p = int(rng.integers(0, 48_000))
+        reads.append(code2b[genome[p:p + 800]].tobytes())
+
+    def boom(self, qs, ts):
+        raise RuntimeError("device finalize failed")
+
+    monkeypatch.setattr(DeviceGlobalAligner, "align_batch", boom)
+    monkeypatch.setenv("SEEKSV_TPU_DEVICE_FINALIZE_ON_CPU", "1")
+    monkeypatch.setenv("SEEKSV_TPU_FINALIZE_CROSSOVER_CELLS", "1")
+    monkeypatch.setenv("SEEKSV_TPU_FINALIZE_DEVICE_SHARE", "0.55")
+    al = BatchAligner.from_fasta(str(fa))
+    with pytest.raises(RuntimeError, match="device finalize failed"):
+        al.batch_align(reads)

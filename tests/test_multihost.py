@@ -6,7 +6,7 @@ equal to the sequential single-process result.
 
 The workers run in separate python processes (tests/multihost_worker.py)
 coordinated over a local TCP port with gloo CPU collectives; this is the
-same initialization path a real multi-host TPU pod uses
+same initialization path a real multi-host GPU cluster uses
 (jax.distributed.initialize), minus the hardware."""
 import os
 import socket
